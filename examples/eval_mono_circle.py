@@ -1,8 +1,8 @@
 """Mono circle-sequence evaluation — tracks the rotation-dominant 84-frame
 circular trajectory monocularly and reports lost-frame count + Sim3 ATE.
 
-This is the stress fixture from STATUS.md limitation #2 (mono loses lock on
-the most rotation-dominant arc).  Used to quantify front-end changes like
+This is a stress fixture: mono tracking can lose lock on the most
+rotation-dominant arc.  Used to quantify front-end changes like
 the 2x-feature init extractor (mpIniORBextractor, Tracking.cc:≈150).
 
 Usage: JAX_PLATFORMS=cpu python examples/eval_mono_circle.py [--frames 84]

@@ -64,6 +64,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from orbslam2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 

@@ -1,5 +1,5 @@
 """Reference-scale end-to-end run: a KITTI-class synthetic sequence at
-production configuration (round-2 verdict ask #3).
+production configuration.
 
 1000+ frames at 1241x376 / 2000 features (the reference's stereo_kitti
 operating point, Examples/Stereo/stereo_kitti.cc + KITTI00-02.yaml),
@@ -13,7 +13,7 @@ Reports: tracked-frame %, ATE, fps, keyframe/point pool high-water marks,
 loop edges, and per-100-frame wall costs (flatness = no per-frame cost
 growth with map size).
 
-Run (TPU): python examples/run_reference_scale.py
+Run (GPU): python examples/run_reference_scale.py
 Run (CPU smoke): JAX_PLATFORMS=cpu python examples/run_reference_scale.py \
     --frames 120 --width 320 --height 96 --features 512
 

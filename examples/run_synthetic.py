@@ -51,6 +51,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from orbslam2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orbslam2_tpu.config import (
         CameraSettings, OrbSettings, Settings, TpuSettings,

@@ -1,6 +1,6 @@
 // Native host-runtime helpers for orbslam2_tpu.
 //
-// The reference is a C++ system end to end; in the TPU-native redesign the
+// The reference is a C++ system end to end; in the JAX redesign the
 // compute path lives in JAX/XLA, and the HOST runtime keeps native code where
 // the reference's performance depended on it (SURVEY.md §2.3):
 //

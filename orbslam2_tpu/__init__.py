@@ -1,4 +1,4 @@
-"""orbslam2_tpu — a TPU-native visual SLAM framework.
+"""orbslam2_tpu — a JAX visual SLAM framework.
 
 Brand-new JAX/XLA/Pallas re-design of the capabilities of ORB-SLAM2
 (reference: yg838457845/ORB_SLAM2-Chinese-annotation, an annotation fork of
@@ -18,10 +18,11 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry code (Lie ops, GN/LM normal equations, triangulation) needs true
-# f32 matmuls; TPU's default bf16 MXU passes lose ~3 decimal digits which is
-# fatal for pose accuracy.  Hot throughput kernels opt back down explicitly
-# (bf16 inputs / Precision.DEFAULT) where it is safe.
+# Full float32 matmuls for the whole process.  Without this the GPU runs
+# float32 matmuls in TF32, which keeps about three decimal digits: fatal
+# for pose accuracy in the geometry code (Lie ops, GN/LM normal equations,
+# triangulation), and rBRIEF sampling (ops/orb.py) is an exact one-hot
+# contraction only in full float32.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .config import Settings, OrbSettings, CameraSettings, TpuSettings  # noqa: F401

@@ -4,8 +4,8 @@ Drop-in compatible with the reference's OpenCV-YAML settings files
 (``Examples/**/*.yaml``, parsed by cv::FileStorage in the Tracking ctor —
 src/Tracking.cc:≈55-170).  We parse the same ``%YAML:1.0`` files with the
 same keys (``Camera.fx`` … ``ORBextractor.nFeatures`` … ``ThDepth`` …) plus
-TPU-specific extensions under ``Tpu.*`` (feature capacity, map capacity,
-mesh shape).
+extensions under ``Tpu.*`` (feature capacity, map capacity, mesh shape;
+the key names predate the GPU port).
 """
 
 from __future__ import annotations
@@ -171,9 +171,8 @@ class TpuSettings:
                                        # the KF gap reaches this (frames)
     kf_urgent_wait_s: float = 0.15     # grace for the urgent adopt (covers a
                                        # normally-finishing mapping job tail;
-                                       # ~115 ms/job after the fused-kernel
-                                       # round — a longer stall only defers
-                                       # the keyframe further)
+                                       # a longer stall only defers the
+                                       # keyframe further)
     mesh_shape: tuple = (1,)           # device mesh ("map" axis)
     dtype: str = "float32"
 

@@ -1,11 +1,11 @@
 """Per-image working set: extraction + undistortion + depth association.
 
-TPU-native equivalent of ``Frame`` (src/Frame.cc, SURVEY.md §2.1): the
+JAX equivalent of ``Frame`` (src/Frame.cc, SURVEY.md §2.1): the
 mono/stereo/RGB-D constructors.  Deviations from the reference, by design:
 * stereo L/R extraction is a batch of 2 through one jitted program instead
   of two std::threads (Frame.cc:≈110 — SURVEY.md §2.5 P4);
 * no 64x48 feature grid (Frame::AssignFeaturesToGrid): our matchers are
-  dense masked reductions, which is the TPU-shaped equivalent of the grid's
+  dense masked reductions, which is the batched equivalent of the grid's
   O(1) radius queries.
 """
 
@@ -65,13 +65,9 @@ def build_stereo_frame(
     scale_factors: jnp.ndarray,
 ) -> Frame:
     pair = jnp.stack([jnp.asarray(image_left), jnp.asarray(image_right)])
-    # Two independent extractions, NOT jax.vmap over the pair: the
-    # batched extraction program reproducibly crashes the TPU runtime
-    # worker at 640x480/8-level shapes ("TPU worker process crashed:
-    # kernel fault", with the Pallas detector disabled too — an XLA
-    # miscompilation of the vmapped pyramid).  XLA still overlaps the two
-    # subgraphs; the reference's 2 extraction threads (Frame.cc:≈110) are
-    # parallelised by the scheduler either way.
+    # Two independent extractions in one program; XLA overlaps the two
+    # subgraphs, as the reference runs 2 extraction threads
+    # (Frame.cc:≈110).  A jax.vmap over the pair is untried on the GPU.
     left = extractor(pair[0])
     right = extractor(pair[1])
     ur, depth = stereo_ops.compute_stereo_matches(

@@ -1,6 +1,6 @@
 """The map as functional struct-of-arrays state.
 
-TPU-native replacement for the reference's pointer-graph data model
+JAX replacement for the reference's pointer-graph data model
 (``Map``/``KeyFrame``/``MapPoint``, src/Map.cc, src/KeyFrame.cc,
 src/MapPoint.cc — SURVEY.md §2.1 L2): fixed-capacity pools with validity
 masks instead of heap objects, pure-function updates instead of per-object
@@ -11,7 +11,7 @@ Key design points:
   transpose of the reference's MapPoint::mObservations.  Everything the
   reference derives from the backward index (covisibility weights,
   distinctive descriptors, normals, local-BA incidence) is recomputed on
-  device from the forward index with segment ops / one MXU matmul — cheap,
+  device from the forward index with segment ops / one matmul — cheap,
   and immune to index-inconsistency bugs.
 * Covisibility = B^T B where B[p, k] = point p observed by keyframe k:
   the covisibility graph of KeyFrame::UpdateConnections (KeyFrame.cc:≈210)
@@ -177,7 +177,7 @@ def covisible_row(m: MapState, kf_id: jnp.ndarray) -> jnp.ndarray:
 def covisibility(m: MapState, chunk: int = 16384) -> jnp.ndarray:
     """(K, K) int32 covisibility weights (shared-point counts, diag zeroed).
 
-    The whole covisibility graph (KeyFrame::UpdateConnections) as MXU
+    The whole covisibility graph (KeyFrame::UpdateConnections) as
     matmuls over POINT CHUNKS: W = sum_c B_c^T B_c with B_c (chunk, K)
     scattered from the forward index — O(chunk*K) memory instead of the
     full (P, K).  Loop-rate consumers only (pose graph, loop grouping);
@@ -314,7 +314,7 @@ def compute_distinctive_descriptors(
     for every point, pick the observation descriptor minimizing the MEDIAN
     Hamming distance to the point's other observation descriptors.
 
-    TPU shape: the per-point observation lists the reference walks via
+    Batched shape: the per-point observation lists the reference walks via
     mObservations are materialized as one (P', max_obs, 8) table built from
     the forward index with a segment-rank sort (argsort by point id; rank
     within run = position - run start), then all pairwise distances come
@@ -356,8 +356,8 @@ def compute_distinctive_descriptors(
 
     # Sorted-segment GATHER (not scatter): sort observations by point id,
     # then table[p, r] = sorted_desc[base(p) + r] — a (P', max_obs) gather
-    # from the sorted copy.  A scatter over the K*N observation rows is
-    # ~5x slower on TPU than this gather at default capacities.
+    # from the sorted copy, instead of a scatter over the K*N observation
+    # rows.
     order = jnp.argsort(flat_pid)  # stable; sentinel P_eff sorts last
     sorted_pid = flat_pid[order]
     sorted_desc = desc_flat[order]
@@ -405,6 +405,17 @@ def compute_distinctive_descriptors(
     return m._replace(
         pt_desc=jnp.where(upd[:, None], best_desc, m.pt_desc)
     )
+
+
+def scatter_slots(n: int, idx: jnp.ndarray, val: jnp.ndarray,
+                  ok: jnp.ndarray, fill=NO_POINT) -> jnp.ndarray:
+    """(n,) array holding ``val[i]`` at slot ``idx[i]`` where ``ok[i]``,
+    ``fill`` elsewhere.  Rows that are not ok go to an out-of-bounds slot
+    and are dropped: the order of a scatter among duplicate indices is
+    unspecified on the GPU, so routing them to a real slot could overwrite
+    a genuine write there."""
+    tgt = jnp.where(ok, idx, n)
+    return jnp.full((n,), fill, val.dtype).at[tgt].set(val, mode="drop")
 
 
 @jax.jit

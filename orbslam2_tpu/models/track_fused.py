@@ -332,15 +332,15 @@ class ChunkOut(NamedTuple):
     kf_id: jnp.ndarray    # (C,) int32 created keyframe id, -1 if none
     # Pool state piggybacked on the chunk readback so maintenance decisions
     # (compaction trigger, culled-ref re-anchoring) never need their own
-    # ~30 ms host sync.
+    # host sync.
     kf_valid: jnp.ndarray  # (K,) bool
     n_kf: jnp.ndarray      # int32
 
 
 # Compiled-tracker cache: a fresh Tracker/SlamSystem with the SAME
 # configuration must reuse the already-compiled fused programs — without
-# this, every reset()/re-construction recompiles the large chunk program
-# (~30-60 s on TPU), which is exactly what a production driver restarting
+# this, every reset()/re-construction recompiles the large chunk program,
+# which is exactly what a production driver restarting
 # a sequence cannot afford.  Keyed by everything the trace depends on.
 _TRACKER_CACHE: dict = {}
 
@@ -483,7 +483,7 @@ def make_fused_chunk_tracker(
         # donated into the next chunk dispatch while the host may still be
         # waiting to read these under lag-1 resolution; if XLA dedups the
         # duplicated outputs to one buffer, the read would observe a
-        # donated (deleted/reused) buffer on real TPU backends.  An
+        # donated (deleted/reused) buffer on accelerator backends.  An
         # optimization_barrier is required — identity arithmetic like
         # `x | False` / `x + 0` is folded by the algebraic simplifier and
         # would re-alias.

@@ -1,6 +1,6 @@
 """Bag-of-binary-words place recognition.
 
-TPU-native replacement for DBoW2 (Thirdparty/DBoW2, SURVEY.md §2.2):
+JAX replacement for DBoW2 (Thirdparty/DBoW2, SURVEY.md §2.2):
 
   * Vocabulary = flat arrays (node descriptors + child tables) instead of a
     pointer tree; ``transform`` descends L levels with a batched

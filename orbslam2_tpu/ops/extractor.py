@@ -1,6 +1,6 @@
 """The ORB extractor: pyramid -> FAST -> select -> orient -> describe.
 
-TPU-native equivalent of ``ORBextractor::operator()``
+JAX equivalent of ``ORBextractor::operator()``
 (src/ORBextractor.cc:≈1000).  One jitted program per (image-shape, config):
 all levels processed with static shapes, producing a fixed-capacity, masked
 feature set (the SoA replacement for the reference's std::vector<KeyPoint>).
@@ -50,9 +50,6 @@ class Features(NamedTuple):
         return self.xy.shape[-2]
 
 
-FORCE_XLA_FAST = False  # trace-time switch: disable the Pallas detector
-
-
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -72,19 +69,9 @@ def _extract(
     levels = pyr_ops.build_pyramid(image.astype(jnp.float32), n_levels, scale_factor)
     scales = pyr_ops.scale_factors(n_levels, scale_factor)
 
-    # On TPU the fused Pallas detector streams each level through VMEM in
-    # one pass (score + NMS, image read once); CPU tests use the XLA path.
-    # FORCE_XLA_FAST is a trace-time kill switch (perf debugging).
-    use_pallas = (not FORCE_XLA_FAST) and jax.default_backend() not in ("cpu",)
-    if use_pallas:
-        from .pallas_kernels import fast_score_nms_pallas
-
     xs, lvls, resps, valids, patches = [], [], [], [], []
     for li, img in enumerate(levels):
-        if use_pallas:
-            score = fast_score_nms_pallas(img)
-        else:
-            score = fast_ops.nms3x3(fast_ops.fast_score(img))
+        score = fast_ops.nms3x3(fast_ops.fast_score(img))
         score = jnp.where(score >= min_th, score, 0.0)
         xy, resp, valid = select_ops.select_keypoints(
             score, per_level[li], cell=cell
@@ -105,7 +92,7 @@ def _extract(
     lvl = jnp.concatenate(lvls)
     resp = jnp.concatenate(resps)
     valid = jnp.concatenate(valids)
-    # Orientation + rotated-BRIEF for ALL levels' keypoints in one MXU
+    # Orientation + rotated-BRIEF for ALL levels' keypoints in one
     # batch (patches are level-agnostic once gathered).
     pat = jnp.concatenate(patches)
     ang = orb_ops.orientations_from_patches(pat)

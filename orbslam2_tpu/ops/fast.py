@@ -1,14 +1,14 @@
 """FAST-9/16 corner detection as dense, branch-free tensor ops.
 
-TPU-native replacement for the OpenCV ``FAST`` calls inside
+JAX replacement for the OpenCV ``FAST`` calls inside
 ``ORBextractor::ComputeKeyPointsOctTree`` (src/ORBextractor.cc:≈790).  The
 reference runs FAST per 30x30 cell with threshold 20, retrying at 7 when a
 cell comes up empty; we instead compute a dense *corner score* map once —
 score = the maximum threshold at which the pixel is still a FAST corner —
 so a single pass supports both thresholds (selection applies them later).
 
-Everything is fixed-shape elementwise math on the full image: ideal for the
-VPU, fused by XLA.  No data-dependent control flow.
+Everything is fixed-shape elementwise math on the full image, fused by
+XLA.  No data-dependent control flow.
 """
 
 from __future__ import annotations

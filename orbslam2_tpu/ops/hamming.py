@@ -1,9 +1,10 @@
 """Packed 256-bit Hamming distance — the matching primitive.
 
-TPU-native replacement for ``ORBmatcher::DescriptorDistance``
+Batched replacement for ``ORBmatcher::DescriptorDistance``
 (src/ORBmatcher.cc:≈1630, bit-twiddling popcount).  Descriptors are
 (N, 8) uint32; the full distance matrix is XOR + ``lax.population_count``
-+ sum — pure VPU work that XLA tiles well.  All ``SearchBy*`` variants in
++ sum, which XLA fuses into one loop (and, inside a matcher, into the
+masked best-2 reduction that consumes it).  All ``SearchBy*`` variants in
 ops/matcher.py are masked reductions over this matrix.
 
 Reference thresholds (ORBmatcher.cc:≈30): TH_LOW=50, TH_HIGH=100, and the
@@ -25,29 +26,11 @@ HISTO_LENGTH = 30  # rotation-consistency histogram bins
 _INVALID_DIST = 10_000  # > any possible 256-bit distance
 
 
-def _hamming_xla(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
-    x = jnp.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
-    return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
-
-
 @jax.jit
 def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
-    """(Na, 8) x (Nb, 8) uint32 -> (Na, Nb) int32 Hamming distances.
-
-    On TPU with 128-aligned shapes this dispatches to the Pallas tiled
-    kernel (ops/pallas_kernels.py) — the XOR/popcount intermediate stays in
-    VMEM instead of HBM.  Elsewhere: the XLA broadcast path.
-    """
-    na, nb = desc_a.shape[0], desc_b.shape[0]
-    if (
-        jax.default_backend() not in ("cpu",)
-        and na % 128 == 0
-        and nb % 128 == 0
-    ):
-        from .pallas_kernels import hamming_matrix_pallas
-
-        return hamming_matrix_pallas(desc_a, desc_b)
-    return _hamming_xla(desc_a, desc_b)
+    """(Na, 8) x (Nb, 8) uint32 -> (Na, Nb) int32 Hamming distances."""
+    x = jnp.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
+    return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
 class Matches(NamedTuple):

@@ -33,9 +33,6 @@ from .hamming import (
 )
 
 
-USE_PALLAS_PROJECTION_MATCH = False  # see note in projection_match
-
-
 def projection_match(
     proj_uv: jnp.ndarray,      # (M, 2) projected source positions
     rr2: jnp.ndarray,          # (M,) squared search radius per source
@@ -53,62 +50,30 @@ def projection_match(
 ) -> Matches:
     """The SearchByProjection core shared by the tracking hot paths:
     nearest+second Hamming neighbor inside a per-source circular window and
-    octave band.  Default: the XLA composition (masked_best2 over the
-    Hamming matrix).  An equivalent single-pass Pallas kernel
-    (ops/pallas_kernels.projection_best2_pallas) exists behind
-    USE_PALLAS_PROJECTION_MATCH — see the note below.
+    octave band (masked_best2 over the Hamming matrix; XLA fuses the mask
+    and the best-2 reduction with the distance computation).
 
     ``level_dir`` (traced int scalar) selects the motion-model octave gate
     of ORBmatcher::SearchByProjection(cur, last) (src/ORBmatcher.cc:≈1180):
     +1 = forward motion (target octave >= source), -1 = backward (<=),
     0/None = symmetric +-level_band."""
-    na, nb = proj_desc.shape[0], frame_desc.shape[0]
-    # The fused Pallas path is measured NET-SLOWER inside the big fused
-    # tracking program on v5e (7.0 vs 6.6 ms/frame): XLA already fuses the
-    # mask+reduction chain, and the pallas_call boundary + meta-array
-    # layouts cost more than the avoided (M, N) intermediates.  Kept as an
-    # opt-in (parity-tested) for topologies where HBM is the bottleneck.
-    use_pallas = (
-        USE_PALLAS_PROJECTION_MATCH
-        and level_dir is None
-        and jax.default_backend() not in ("cpu",)
-        and na % 128 == 0 and nb % 128 == 0
+    d2 = jnp.sum((proj_uv[:, None, :] - frame_xy[None, :, :]) ** 2, axis=-1)
+    dl = frame_level[None, :] - proj_level[:, None]
+    band_ok = jnp.abs(dl) <= level_band
+    if level_dir is not None:
+        band_ok = jnp.where(
+            level_dir > 0, dl >= 0,
+            jnp.where(level_dir < 0, dl <= 0, band_ok),
+        )
+    mask = (
+        (d2 <= rr2[:, None])
+        & band_ok
+        & proj_valid[:, None]
+        & frame_valid[None, :]
     )
-    if use_pallas:
-        from .pallas_kernels import projection_best2_pallas
-
-        meta_a = jnp.zeros((na, 8), jnp.float32)
-        meta_a = meta_a.at[:, 0:2].set(proj_uv)
-        meta_a = meta_a.at[:, 2].set(rr2)
-        meta_a = meta_a.at[:, 3].set(proj_level.astype(jnp.float32))
-        meta_a = meta_a.at[:, 4].set(proj_valid.astype(jnp.float32))
-        meta_b = jnp.zeros((nb, 8), jnp.float32)
-        meta_b = meta_b.at[:, 0:2].set(frame_xy)
-        meta_b = meta_b.at[:, 2].set(frame_level.astype(jnp.float32))
-        meta_b = meta_b.at[:, 3].set(frame_valid.astype(jnp.float32))
-        best_idx, best, second = projection_best2_pallas(
-            proj_desc, meta_a, frame_desc, meta_b, level_band=level_band
-        )
-    else:
-        d2 = jnp.sum(
-            (proj_uv[:, None, :] - frame_xy[None, :, :]) ** 2, axis=-1
-        )
-        dl = frame_level[None, :] - proj_level[:, None]
-        band_ok = jnp.abs(dl) <= level_band
-        if level_dir is not None:
-            band_ok = jnp.where(
-                level_dir > 0, dl >= 0,
-                jnp.where(level_dir < 0, dl <= 0, band_ok),
-            )
-        mask = (
-            (d2 <= rr2[:, None])
-            & band_ok
-            & proj_valid[:, None]
-            & frame_valid[None, :]
-        )
-        best_idx, best, second = masked_best2(
-            hamming_matrix(proj_desc, frame_desc), mask
-        )
+    best_idx, best, second = masked_best2(
+        hamming_matrix(proj_desc, frame_desc), mask
+    )
     ok = (best <= max_dist) & proj_valid
     ok = ok & (best.astype(jnp.float32) < ratio * second.astype(jnp.float32))
     return Matches(idx=best_idx, dist=best, dist2=second, ok=ok)

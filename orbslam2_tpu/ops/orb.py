@@ -1,18 +1,16 @@
 """Oriented rBRIEF descriptors: orientation + rotated binary tests.
 
-TPU-native replacement for the descriptor half of ``ORBextractor``:
+JAX replacement for the descriptor half of ``ORBextractor``:
 ``IC_Angle`` (src/ORBextractor.cc:≈80, intensity centroid over a radius-15
 circular patch) and ``computeOrbDescriptor`` (src/ORBextractor.cc:≈110,
 256 rotated pairwise intensity comparisons -> 32 bytes).
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate, batched):
 * All keypoints of a level are processed as one batched patch gather — no
   per-keypoint loop.  Each keypoint's 31x31 patch is sliced once; both the
   intensity-centroid orientation and the descriptor sampling read from the
   patch, so the image is touched once per keypoint instead of ~1.5k
-  scattered scalar gathers (the difference between ~8 ms and ~1 ms per
-  frame on a TPU chip: scattered HBM gathers are the slowest primitive,
-  dense slices + MXU matmuls the fastest).
+  scattered scalar gathers.
 * The steered-BRIEF sampling reads from the gathered patch with a
   per-keypoint ``take_along_axis`` at exact-angle rotated, cvRound-rounded
   offsets — bit-identical semantics to the reference's scalar loop, but a
@@ -71,9 +69,8 @@ _MXY = np.stack(
 
 def extract_patches(image: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """(N, PATCH*PATCH) float32 patches centered (rounded, border-clamped)
-    on each keypoint.  Row-block gather + per-keypoint column slice — the
-    TPU-fast layout (full rows move as dense vectors; only the column
-    offset is dynamic)."""
+    on each keypoint.  Row-block gather + per-keypoint column slice (full
+    rows move as dense vectors; only the column offset is dynamic)."""
     h, w = image.shape
     x = jnp.clip(
         jnp.round(xy[:, 0]).astype(jnp.int32), HALF_PATCH, w - 1 - HALF_PATCH
@@ -109,12 +106,11 @@ def descriptors_from_patches(
     nearest pixel, compare I(p0) < I(p1).
 
     The rotated offsets are data-dependent, so the natural lowering is a
-    (N, 512)-from-(N, 961) gather — but arbitrary-index gathers are the
-    TPU's slowest primitive (measured 5.2 ms/frame, the single largest op
-    in the whole tracking step).  Instead the sample is expressed as two
-    one-hot contractions over the patch axes — row select on the MXU,
-    column select on the VPU — which is bit-identical and ~1 GFLOP of
-    dense work (tens of microseconds):
+    (N, 512)-from-(N, 961) gather.  Here the sample is instead two one-hot
+    contractions over the patch axes (a row-select matmul, then a masked
+    column sum), which is bit-identical under full float32 matmul
+    precision and ~1 GFLOP of dense work.  Which form is cheaper on the
+    GPU is not measured yet:
         sample[k,s] = sum_r onehot(ry)[k,s,r] *
                       sum_c onehot(rx)[k,s,c] * patch[k,r,c]
     """
@@ -131,7 +127,7 @@ def descriptors_from_patches(
     oh_y = (ry[:, :, None] == grid).astype(patches.dtype)
     oh_x = (rx[:, :, None] == grid).astype(patches.dtype)
     p2d = patches.reshape(n, PATCH, PATCH)
-    rows = jnp.einsum("ksr,krc->ksc", oh_y, p2d)   # row select (MXU)
+    rows = jnp.einsum("ksr,krc->ksc", oh_y, p2d)   # row select (matmul)
     samples = jnp.sum(oh_x * rows, axis=-1).reshape(n, 256, 2)
     bits = samples[:, :, 0] < samples[:, :, 1]  # (N, 256)
     weights = (jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32))[None, None, :]

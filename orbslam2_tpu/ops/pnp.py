@@ -1,7 +1,7 @@
 """Perspective-n-Point RANSAC for relocalization.
 
 Role of the reference's ``PnPsolver`` (src/PnPsolver.cc, EPnP + RANSAC —
-SURVEY.md §2.1).  TPU-native substitution: the hypothesis solver is a
+SURVEY.md §2.1).  Batched substitution: the hypothesis solver is a
 batched 6-point DLT (one (12,12) SVD per hypothesis, all hypotheses one
 tensor) with orthogonal Procrustes rotation extraction, scored by
 reprojection chi2 exactly like PnPsolver::CheckInliers; the winner is
@@ -74,7 +74,7 @@ def _quartic_roots_dk(coeffs: jnp.ndarray, iters: int = 48) -> jnp.ndarray:
     """Durand-Kerner all-roots iteration for a batch of quartics.
 
     coeffs: (..., 5) with [c4, c3, c2, c1, c0].  Returns (..., 4) complex
-    roots.  Pure arithmetic (no eig), so it runs under jit on TPU."""
+    roots.  Pure arithmetic (no eig), so it runs under jit anywhere."""
     c4 = coeffs[..., 0:1]
     monic = coeffs / jnp.where(jnp.abs(c4) < 1e-12, 1e-12, c4)
     c3, c2, c1, c0 = (monic[..., i] for i in range(1, 5))

@@ -1,6 +1,6 @@
 """Image pyramid + Gaussian blur.
 
-TPU-native equivalent of ``ORBextractor::ComputePyramid``
+JAX equivalent of ``ORBextractor::ComputePyramid``
 (src/ORBextractor.cc:≈750: 8 levels, scale 1.2, bilinear resize) and the
 7x7 sigma=2 GaussianBlur applied before descriptor extraction
 (src/ORBextractor.cc:≈1060).  All shapes are static per level; XLA fuses the
@@ -63,8 +63,8 @@ def gaussian_blur(image: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp
     k = jnp.asarray(_gaussian_kernel(ksize, sigma))
     r = ksize // 2
     padded = jnp.pad(image, ((r, r), (0, 0)), mode="reflect")
-    # Convolve rows then cols via depthwise 1-D convs (XLA lowers to fused VPU
-    # ops; image is (H, W) f32).
+    # Convolve rows then cols via depthwise 1-D convs (XLA fuses them;
+    # image is (H, W) f32).
     out = jnp.zeros_like(image)
     for i in range(ksize):
         out = out + k[i] * jax.lax.dynamic_slice_in_dim(padded, i, image.shape[0], 0)

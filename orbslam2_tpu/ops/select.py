@@ -1,6 +1,6 @@
 """Spatially-uniform keypoint selection (fixed-shape top-k).
 
-TPU-native replacement for ``ORBextractor::DistributeOctTree``
+JAX replacement for ``ORBextractor::DistributeOctTree``
 (src/ORBextractor.cc:≈560).  The reference's quadtree subdivision is
 inherently sequential; we approximate it with per-cell candidate top-k
 followed by a global top-n — the same "best response, spread across the

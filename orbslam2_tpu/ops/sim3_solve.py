@@ -1,6 +1,6 @@
 """Sim(3)/SE(3) RANSAC from 3D-3D correspondences (loop alignment).
 
-TPU-native equivalent of ``Sim3Solver`` (src/Sim3Solver.cc, SURVEY.md
+JAX equivalent of ``Sim3Solver`` (src/Sim3Solver.cc, SURVEY.md
 §2.1): Horn's 1987 closed-form absolute orientation on minimal 3-point
 samples, all RANSAC hypotheses as one batch; inlier check by projecting
 each cloud into the OTHER camera with per-octave thresholds

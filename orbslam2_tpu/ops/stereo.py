@@ -1,6 +1,6 @@
 """Stereo feature matching (left/right disparity).
 
-TPU-native equivalent of ``Frame::ComputeStereoMatches``
+JAX equivalent of ``Frame::ComputeStereoMatches``
 (src/Frame.cc:≈470): per-row banded search of right-image features for each
 left keypoint by descriptor distance.  Expressed as one masked Hamming
 matching (the band is the pair mask) instead of the reference's per-row

@@ -1,10 +1,10 @@
 """Two-view reconstruction: batched H/F RANSAC + model select + CheckRT.
 
-TPU-native equivalent of ``Initializer`` (src/Initializer.cc, SURVEY.md
+JAX equivalent of ``Initializer`` (src/Initializer.cc, SURVEY.md
 §2.1): the reference runs two std::threads (FindHomography ∥
 FindFundamental), each an adaptive 200-iteration RANSAC; here both models
 score ALL hypotheses as one batched tensor program (hypotheses are a batch
-dim — SURVEY.md §2.5 P5's TPU mapping), then the reference's model-selection
+dim — SURVEY.md §2.5 P5's batched mapping), then the reference's model-selection
 rule RH = SH/(SH+SF) > 0.40 picks H vs F, then ReconstructF/ReconstructH
 candidate motions are verified by a batched CheckRT.
 
@@ -154,7 +154,7 @@ def triangulate_linear(
     Seed: inhomogeneous normal-equation DLT — with A = [A3 | a4] the DLT
     rows, solve A3^T A3 X = -A3^T a4 via the closed-form 3x3 inverse.  The
     reference SVD null-vector form (Initializer.cc:≈210) costs a batched
-    4x4 SVD per point, LU-class slow on TPU, and this sits inside both the
+    4x4 SVD per point (an iterative solver per point), and this sits inside both the
     mono-init RANSAC scoring (hypotheses x points) and per-keyframe
     triangulation.  The closed form alone is slightly LESS accurate than
     the SVD (different algebraic norm), so ``gn_iters`` Gauss-Newton steps

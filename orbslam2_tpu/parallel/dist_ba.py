@@ -4,7 +4,7 @@ The multi-chip version of solvers/local_ba.py: keyframes (cameras) are
 sharded along the mesh axis ``"map"``; each device assembles the solver
 blocks for ITS keyframe shard, then
 
-  * landmark blocks H_pp, b_p are reduced with ``psum`` over ICI (points
+  * landmark blocks H_pp, b_p are reduced with ``psum`` (points
     are shared across keyframe shards),
   * per-camera blocks (H_cc, b_c) and camera-point cross blocks G are
     ``all_gather``-ed so every device can form the (small, dense) reduced
@@ -135,7 +135,7 @@ def make_distributed_ba_step(mesh: Mesh, cam: CameraModel, n_total_cams: int,
         )
 
         # --- collectives: reduce landmark blocks, gather camera blocks ---
-        H_pp = jax.lax.psum(H_pp_local, MAP_AXIS)              # ICI all-reduce
+        H_pp = jax.lax.psum(H_pp_local, MAP_AXIS)              # all-reduce
         b_p = jax.lax.psum(b_p_local, MAP_AXIS)
         G = jax.lax.all_gather(G_local, MAP_AXIS, axis=1, tiled=True)  # (P, C, 6, 3)
         H_cc_all = jax.lax.all_gather(H_cc, MAP_AXIS, tiled=True)      # (C, 6, 6)
@@ -343,19 +343,14 @@ def distributed_local_ba(
         poses0, pts0, uv, ur, inv_s2, pid_l, obs_ok_l, is_fixed, used,
     )
 
+    # Only used cameras are written (see local_bundle_adjustment).
+    cam_w = jnp.where(used, cam_ids, m.kf_capacity)
     new_rows = jnp.where(
         obs_ok_l & ~obs_mask, ms.NO_POINT, m.kf_point[cam_ids]
     )
-    kf_point = m.kf_point.at[cam_ids].set(
-        jnp.where(used[:, None], new_rows, m.kf_point[cam_ids]),
-        mode="drop",
-    )
-    kf_pose = m.kf_pose_cw.at[cam_ids].set(
-        jnp.where(
-            used[:, None, None], orthonormalize_se3(poses),
-            m.kf_pose_cw[cam_ids],
-        ),
-        mode="drop",
+    kf_point = m.kf_point.at[cam_w].set(new_rows, mode="drop")
+    kf_pose = m.kf_pose_cw.at[cam_w].set(
+        orthonormalize_se3(poses), mode="drop"
     )
     upd = pt_in_l & sel_in
     pt_pos = m.pt_pos.at[sel].set(

@@ -5,7 +5,7 @@ Multi-chip version of ``solvers/pose_graph.optimize_essential_graph``
 which runs single-threaded under the global map lock): EDGES are sharded
 over the mesh axis ``"map"``; each device evaluates residuals + Jacobians
 for its edge shard and assembles a partial dense normal system, which is
-reduced with one ``psum`` over ICI per Gauss-Newton iteration.  The (small,
+reduced with one ``psum`` per Gauss-Newton iteration.  The (small,
 dense) (7K, 7K) solve is replicated — identical on every device — so the
 corrected poses come out replicated with no further communication.
 

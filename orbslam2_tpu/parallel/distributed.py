@@ -1,12 +1,12 @@
 """Multi-host runtime: jax.distributed init + live-map sharding.
 
-SURVEY.md §2.5/§5's north star is map parallelism over ICI *and DCN*: the
+SURVEY.md §2.5/§5's north star is map parallelism within and across hosts: the
 reference is a single-process shared-memory system (no backend at all);
 this module is the genuinely new capability layer on top of parallel/mesh:
 
   * ``initialize_distributed`` — the ``jax.distributed.initialize`` launch
-    path for multi-host meshes (one process per host, TPU slices over ICI,
-    multiple slices over DCN).  Single-process/virtual-device runs skip it.
+    path for multi-host meshes (one process per host).  Single-process/
+    virtual-device runs skip it.
   * ``shard_map_state`` — places the LIVE ``MapState`` on a mesh with
     keyframe-block sharding: every keyframe-major pool (poses, keypoints,
     descriptors, bindings) is sharded along the ``map`` axis; the landmark
@@ -49,7 +49,7 @@ def initialize_distributed(
     No-op (returns False) when running single-process — virtual-device
     tests and the single-chip bench need no coordinator.  Mirrors
     ``jax.distributed.initialize``'s auto-detection when args are None
-    (TPU pods populate them from the environment)."""
+    (cluster environments populate them)."""
     if num_processes is not None and num_processes <= 1:
         return False
     try:

@@ -3,7 +3,7 @@
 The reference has NO distributed story (single process, shared memory —
 SURVEY.md §2.5); this package is the genuinely new capability: the map
 (keyframes + their observations) sharded over a ``Mesh`` axis ``"map"``,
-with XLA collectives reducing solver blocks over ICI (BASELINE.json north
+with XLA collectives reducing solver blocks across devices (BASELINE.json north
 star; SURVEY.md §5 'map parallelism ≈ context parallelism').
 """
 

@@ -16,7 +16,7 @@ global refinement alternates two *perfectly batched* half-steps instead:
 
 Alternation converges to the same stationary points as joint BA (it IS
 block-coordinate descent on the same cost), trades some convergence rate
-for O(P + K) memory and total batch-parallelism — the TPU-shaped choice
+for O(P + K) memory and total batch-parallelism — the batched choice
 for the background polish pass, which in the reference runs for only 10
 LM iterations anyway.
 """
@@ -200,8 +200,8 @@ def global_bundle_adjustment(
 
 # ---------------------------------------------------------------------------
 # Joint global BA (the reference's actual GBA shape: one LM problem over all
-# keyframes + points, g2o BundleAdjustment, Optimizer.cc:≈80) — feasible on
-# TPU up to a few hundred keyframes by compacting the active map and running
+# keyframes + points, g2o BundleAdjustment, Optimizer.cc:≈80) — feasible
+# up to a few hundred keyframes by compacting the active map and running
 # the SAME Schur-complement engine as local BA over all of it.  Beyond
 # max_cams, the caller should fall back to the alternation solver above.
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """SE(3)/Sim(3) Lie-group operations in pure JAX.
 
-TPU-native replacement for the reference's g2o Lie types
+JAX replacement for the reference's g2o Lie types
 (``Thirdparty/g2o/g2o/types/se3quat.h``, ``sim3.h``, ``se3_ops.h`` — see
 SURVEY.md §2.2).  Everything here is batched-friendly (leading dims broadcast)
 and differentiable, so the GN/LM solvers can autodiff through retractions.
@@ -8,7 +8,8 @@ and differentiable, so the GN/LM solvers can autodiff through retractions.
 Conventions
 -----------
 * Rotations are 3x3 matrices (float32 by default; solvers promote to f64-free
-  f32 math — TPU has no f64 MXU, and SLAM-scale problems are fine in f32).
+  f32 math — accelerators are slow in f64, and SLAM-scale problems are
+  fine in f32).
 * SE3 is stored as a 4x4 homogeneous matrix ``T`` with ``T[..., :3, :3] = R``,
   ``T[..., :3, 3] = t``.
 * Tangent vectors: se3 = ``[rho(3), phi(3)]`` (translation first, matching
@@ -244,10 +245,10 @@ def _sim3_W(phi: jnp.ndarray, sigma: jnp.ndarray, dtype=jnp.float32) -> jnp.ndar
 def inv3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form (adjugate) inverse of batched (..., 3, 3) matrices.
 
-    jnp.linalg.inv lowers small batched inverses to LU on TPU — measured
-    ~14 ms per call at (16384, 3, 3) vs ~2 ms for this fully-vectorized
-    cofactor form; it sits inside every LM iteration of the Schur solvers
-    (landmark-block inversion), so the difference is ~12 ms x iterations
+    jnp.linalg.inv lowers small batched inverses to an LU factorization;
+    this fully-vectorized cofactor form is elementwise arithmetic.  It
+    sits inside every LM iteration of the Schur solvers (landmark-block
+    inversion)
     per bundle adjustment."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -283,8 +284,8 @@ def orthonormalize_se3(T: jnp.ndarray, iters: int = 3) -> jnp.ndarray:
     Newton-Schulz polar iteration (X <- 0.5 X (3I - X^T X)) instead of the
     SVD polar factor: inputs here are NEAR-rotations (drifted by float
     accumulation, singular values ~1), where 3 iterations reach ~1e-7 of
-    the SVD answer, and batched small SVD lowers to an LU-class loop on
-    TPU while this is three batched 3x3 matmuls.  It preserves the
+    the SVD answer, and batched small SVD lowers to an iterative solver
+    while this is three batched 3x3 matmuls.  It preserves the
     determinant sign, so near-SO(3) inputs stay proper rotations."""
     R = T[..., :3, :3]
     # Scale into the Newton-Schulz convergence region (||X||_2 <= sqrt(3)).

@@ -1,6 +1,6 @@
 """Local bundle adjustment with landmark Schur complement.
 
-TPU-native replacement for ``Optimizer::LocalBundleAdjustment``
+JAX replacement for ``Optimizer::LocalBundleAdjustment``
 (src/Optimizer.cc:≈460) and its g2o machinery (BlockSolver_6_3 + sparse
 Cholesky — SURVEY.md §2.2): a batched Gauss-Newton/LM solver where
 
@@ -10,7 +10,7 @@ Cholesky — SURVEY.md §2.2): a batched Gauss-Newton/LM solver where
   * H_pp (3x3 landmark blocks) is built with scatter-adds over the forward
     observation index and inverted in closed form (batched);
   * the reduced camera system S = H_cc - H_cp H_pp^-1 H_pc is a dense
-    (6C, 6C) matrix (C <= 16 cameras) solved with Cholesky on the MXU;
+    (6C, 6C) matrix (C <= 16 cameras) solved with a dense Cholesky;
   * the reference's 5-then-10 iteration schedule with chi2 outlier removal
     in between (Optimizer.cc:≈560) is two unrolled LM phases, outliers
     masked not erased, and finally unbound from the keyframes.
@@ -126,7 +126,7 @@ def schur_ba_core(
     When ``axis_name`` is set (inside shard_map over a mesh), the camera
     axis of every (C, ...) input is the LOCAL shard (C_local = C_global /
     n_shards; points replicated) and the SAME math runs cooperatively:
-    landmark blocks psum-reduced over ICI, per-camera blocks all-gathered
+    landmark blocks psum-reduced across devices, per-camera blocks all-gathered
     for the replicated reduced solve, each shard applying its slice of the
     pose update.  Collectives are identity when axis_name is None, so the
     single-device and distributed paths cannot diverge semantically.
@@ -164,29 +164,12 @@ def schur_ba_core(
     # reference optimizes all local points; fixed-cam-only points have no
     # local observer and get zero gradient anyway.
 
-    # TPU: the fused Pallas kernel computes residuals + Huber weights +
-    # every normal-equation block in ONE pass per camera (N-minor layout;
-    # the pure-XLA graph fragments into ~100 tiny VPU kernels per LM
-    # iteration — measured 12.8 ms/iter at the production window vs ~1 ms
-    # fused).  CPU (tests) keeps the einsum formulation; both share the
-    # scatter/Schur/Cholesky tail, so they cannot diverge semantically.
-    use_pallas = jax.default_backend() not in ("cpu",)
-    if use_pallas:
-        from .ba_kernels import ba_chi2, ba_normal_equations
-
-        uvT = jnp.swapaxes(uv, 1, 2)  # (Cl, 2, N), loop-invariant
-
     def chi2_of(poses, pts, mask):
-        if use_pallas:
-            XT = jnp.swapaxes(pts[pid], 1, 2)
-            chi2_obs, _ = ba_chi2(poses, XT, uvT, ur, inv_s2, mask, cam)
-            return chi2_obs
         r, _, _, behind = _residuals(poses, pts, uv, ur, pid, mask, cam)
         c = jnp.sum(r * r, -1) * inv_s2
         return jnp.where(behind, 1e9, c)
 
-    def _blocks_xla(poses, pts, obs_mask, robust):
-        Cl = poses.shape[0]
+    def _blocks(poses, pts, obs_mask, robust):
         r, J_cam, J_pt, behind = _residuals(poses, pts, uv, ur, pid, obs_mask, cam)
         w = inv_s2 * obs_mask.astype(jnp.float32) * (~behind).astype(jnp.float32)
         if robust:
@@ -210,42 +193,12 @@ def schur_ba_core(
             G_contrib.shape[0], 18, -1
         )
 
-    _TRIU3 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-
-    def _blocks_pallas(poses, pts, obs_mask, robust):
-        Cl = poses.shape[0]
-        XT = jnp.swapaxes(pts[pid], 1, 2)
-        H_cc, b_c, pack, _ = ba_normal_equations(
-            poses, XT, uvT, ur, inv_s2, obs_mask, cam, robust
-        )
-        # Fixed cameras contribute nothing camera-side (H_cc, b_c, G) but
-        # keep their point-side contributions — identical to zeroing J_cam.
-        free_f = (~is_fixed).astype(jnp.float32)
-        H_cc = H_cc * free_f[:, None, None]
-        b_c = b_c * free_f[:, None]
-        flat_pid = pid.reshape(-1)
-        # Point-side scatter-adds from the packed per-obs rows.
-        hp6 = jnp.swapaxes(pack[:, 0:6, :], 1, 2).reshape(-1, 6)
-        H6 = jnp.zeros((P, 6)).at[flat_pid].add(hp6, mode="drop")
-        H_pp = jnp.zeros((P, 3, 3))
-        for r_, (a, b) in enumerate(_TRIU3):
-            H_pp = H_pp.at[:, a, b].set(H6[:, r_])
-            if a != b:
-                H_pp = H_pp.at[:, b, a].set(H6[:, r_])
-        bp3 = jnp.swapaxes(pack[:, 6:9, :], 1, 2).reshape(-1, 3)
-        b_p = jnp.zeros((P, 3)).at[flat_pid].add(bp3, mode="drop")
-        # The kernel already emits the cross-block planes N-minor.
-        g18 = pack[:, 9:27, :] * free_f[:, None, None]
-        return H_cc, b_c, H_pp, b_p, g18
-
     # Inverse observation index: inv_slot[c, p] = the keypoint slot of
     # point p in camera c (sentinel N when unobserved).  With one
     # observation per (camera, point) pair the cross-block tensor G[p, c]
     # is a PERMUTATION of the per-observation contributions — built with a
-    # cheap gather instead of the scatter-add the original formulation
-    # used (the (6,3,P*C) scatter measured 11 ms of the 12.8 ms LM
-    # iteration on TPU).  Computed ONCE per call: pid and obs_ok are
-    # loop-invariant.
+    # cheap gather instead of a (6,3,P*C) scatter-add.  Computed ONCE per
+    # call: pid and obs_ok are loop-invariant.
     Nn = pid.shape[1]
     Cl0 = pid.shape[0]
     _cam_iota = jax.lax.broadcasted_iota(jnp.int32, pid.shape, 0)
@@ -272,10 +225,9 @@ def schur_ba_core(
 
     def _gather_G(G_planes):
         """(Cl, 18, N) per-obs cross-block planes -> (Cl, 6, 3, P),
-        P-minor throughout (a padded (..., 6, 3)-minor tensor tiles at
-        4x128 per 6x3 block — ~9x wasted HBM traffic; this layout and the
-        matmul-form Schur reduction below keep every large intermediate on
-        full tiles)."""
+        P-minor throughout: with this layout and the matmul-form Schur
+        reduction below, no large intermediate has a trailing dim of 3
+        or 6."""
         Cl = G_planes.shape[0]
         Gc_pad = jnp.concatenate(
             [G_planes, jnp.zeros((Cl, 18, 1), G_planes.dtype)], axis=2
@@ -287,9 +239,7 @@ def schur_ba_core(
 
     def lm_step(poses, pts, obs_mask, lam, robust):
         Cl = poses.shape[0]  # local camera count (== C when not sharded)
-        H_cc, b_c, H_pp, b_p, G_planes = (
-            _blocks_pallas if use_pallas else _blocks_xla
-        )(poses, pts, obs_mask, robust)
+        H_cc, b_c, H_pp, b_p, G_planes = _blocks(poses, pts, obs_mask, robust)
         H_pp = psum(H_pp)
         b_p = psum(b_p)
         Gp = gather(_gather_G(G_planes), axis=0)  # (C, 6, 3, P)
@@ -313,7 +263,7 @@ def schur_ba_core(
         # with G[p,c] available as planes Gp[c,i,j,p],
         #   A[c,i,k,p] = sum_j Gp[c,i,j,p] Hpp_inv[p,j,k]
         #   S_red[(c,i),(d,l)] = sum_{k,p} A[c,i,k,p] Gp[d,l,k,p]
-        # — ONE (C*6, 3P) x (3P, C*6) MXU contraction instead of the
+        # — ONE (C*6, 3P) x (3P, C*6) matmul instead of the
         # (P,C,6,3)-tensor einsum chain.
         A = jnp.einsum("cijp,pjk->cikp", Gp, Hpp_inv)
         S_red = jnp.einsum("cikp,dlkp->cidl", A, Gp)
@@ -331,8 +281,7 @@ def schur_ba_core(
         rhs = jnp.where(free6, rhs, 0.0)
 
         # Cholesky, not LU: S is SPD after damping + identity fix rows, and
-        # XLA's LU path for jnp.linalg.solve costs ~3 ms at (96, 96) on TPU
-        # vs <1 ms for cho_solve — this sits in every LM iteration.
+        # this sits in every LM iteration.
         delta_c_all = -jax.scipy.linalg.cho_solve(
             jax.scipy.linalg.cho_factor(S, lower=True), rhs
         ).reshape(C, 6)
@@ -444,21 +393,19 @@ def local_bundle_adjustment(
     )
 
     # Write back: poses, points (scatter the compact set), and unbind
-    # outlier observations.
-    kf_point = m.kf_point
+    # outlier observations.  Only used cameras are written: cam_ids can
+    # repeat kf_id in an unused slot (a young map has fewer covisible
+    # keyframes than the window), and the order of a scatter among
+    # duplicate indices is unspecified on the GPU.
+    from .lie import orthonormalize_se3
+
+    cam_w = jnp.where(used, cam_ids, m.kf_capacity)
     new_rows = jnp.where(
         obs_ok_l & ~obs_mask, ms.NO_POINT, m.kf_point[cam_ids]
     )
-    kf_point = kf_point.at[cam_ids].set(
-        jnp.where(used[:, None], new_rows, m.kf_point[cam_ids])
-    )
-    from .lie import orthonormalize_se3
-
-    kf_pose = m.kf_pose_cw.at[cam_ids].set(
-        jnp.where(
-            used[:, None, None], orthonormalize_se3(poses),
-            m.kf_pose_cw[cam_ids],
-        )
+    kf_point = m.kf_point.at[cam_w].set(new_rows, mode="drop")
+    kf_pose = m.kf_pose_cw.at[cam_w].set(
+        orthonormalize_se3(poses), mode="drop"
     )
     upd = pt_in_l & sel_in
     pt_pos = m.pt_pos.at[sel].set(

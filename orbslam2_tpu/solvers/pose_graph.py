@@ -1,6 +1,6 @@
 """Essential-graph (Sim3 pose graph) optimization.
 
-TPU-native equivalent of ``Optimizer::OptimizeEssentialGraph``
+JAX equivalent of ``Optimizer::OptimizeEssentialGraph``
 (src/Optimizer.cc:≈700): all keyframes as Sim3 variables (7-DoF mono,
 scale-frozen stereo/RGB-D), edges = loop edges + spanning tree +
 strong-covisibility (weight >= 100), 20 GN/LM iterations, then poses
@@ -11,7 +11,7 @@ Design: edges live in fixed-capacity arrays (the covisibility graph is
 already a dense matrix, ms.covisibility); residual r_e = log(S_meas_ji *
 S_i * S_j^{-1}) on all edges batched; the Gauss-Newton normal system is
 assembled by scatter-add into a dense (7K, 7K) matrix (K <= a few hundred
--> the dense Cholesky solve is MXU-friendly).  Jacobians by forward-mode
+-> the dense Cholesky solve is matmul-friendly).  Jacobians by forward-mode
 autodiff through the batched residual.
 """
 
@@ -159,7 +159,7 @@ def optimize_essential_graph(
 
     # Beyond this, the dense (7K, 7K) assemble + Cholesky is replaced by a
     # matrix-free block-Jacobi-preconditioned CG (the reference's g2o uses
-    # sparse Cholesky here; PCG with edge-local matvecs is the TPU-shaped
+    # sparse Cholesky here; PCG with edge-local matvecs is the batched
     # sparse solver — O(E) per matvec, no K^2 memory).
     use_cg = K * 7 > 4096
 

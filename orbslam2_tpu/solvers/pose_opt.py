@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment (pose optimization).
 
-TPU-native replacement for ``Optimizer::PoseOptimization``
+JAX replacement for ``Optimizer::PoseOptimization``
 (src/Optimizer.cc:≈240): the per-frame 6-DoF pose refine the reference runs
 through g2o (VertexSE3Expmap + unary reprojection edges, Huber, 4 rounds x
 10 LM iterations with chi2 outlier re-flagging between rounds, last rounds
@@ -10,7 +10,7 @@ Here the whole schedule is ONE jitted program: residuals/Jacobians for all
 observations are batched (N = feature capacity, masked), the 6x6 normal
 system is a reduction, and the 4x10 round structure is a `lax.fori_loop`
 with outlier masks updated by `jnp.where` — no early exit, fixed cost,
-which is exactly what the TPU wants for a per-frame hot path.
+which is exactly what an accelerator wants for a per-frame hot path.
 
 Chi-square gates (the capability, kept verbatim): 5.991 (mono, 2-DoF),
 7.815 (stereo, 3-DoF); Huber deltas sqrt of those.
@@ -145,12 +145,12 @@ def pose_optimization(
             err = jnp.sum(w * jnp.sum(r * r, -1))
 
             Hd = H + lam * jnp.diag(jnp.diag(H)) + 1e-9 * jnp.eye(6)
-            # NOTE: measured IN the fused tracking program, jnp.linalg.solve
-            # + reusing the full residual/Jacobian evaluation for the
-            # candidate beats an unrolled 6x6 Cholesky + residual-only
-            # candidate by ~0.9 ms/frame (XLA CSEs the candidate's J with
-            # the next iteration; the scalar Cholesky chain schedules
-            # poorly inside the big program).  Keep the solver XLA-native.
+            # jnp.linalg.solve + reusing the full residual/Jacobian
+            # evaluation for the candidate (XLA CSEs the candidate's J with
+            # the next iteration).  On the GPU the tracking step's LU and
+            # triangular-solve kernels are a large share of its device
+            # time (PERF.md); an unrolled 6x6 Cholesky is the alternative
+            # to measure there.
             delta = -jnp.linalg.solve(Hd, b)
             T_new = se3_exp(delta) @ T
 

@@ -1,6 +1,6 @@
 """Sim3 refinement between two keyframes (loop-closure alignment).
 
-TPU-native equivalent of ``Optimizer::OptimizeSim3``
+JAX equivalent of ``Optimizer::OptimizeSim3``
 (src/Optimizer.cc:≈1080): one Sim3 vertex, bidirectional projection
 residuals (EdgeSim3ProjectXYZ / EdgeInverseSim3ProjectXYZ), Huber, the
 reference's 5-iterations -> cut chi2 > 10 -> 10 more schedule.

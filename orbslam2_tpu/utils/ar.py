@@ -3,7 +3,7 @@
 SURVEY.md §2.4): fit a dominant plane to the tracked map points and render
 a virtual cube anchored to it using the live camera pose.
 
-TPU-native pieces:
+Batched pieces:
 * ``fit_plane_ransac`` — the ViewerAR::DetectPlane equivalent as a batched
   fixed-iteration RANSAC (one hypothesis tensor, no loops) + SVD refine on
   the inlier set.

@@ -1,4 +1,4 @@
-"""Live-stream drivers — the ROS-node layer's TPU-native equivalent.
+"""Live-stream drivers — the ROS-node layer's JAX equivalent.
 
 The reference ships ROS nodes (Examples/ROS/ORB_SLAM2/src/ros_mono.cc,
 ros_stereo.cc, ros_rgbd.cc — SURVEY.md §2.4) that subscribe to image

@@ -108,8 +108,7 @@ class TestAsyncPipeline:
         # A synchronous keyframe would cost >= delay; async frames must
         # not.  The urgent-gap adopt is BOUNDED (kf_urgent_wait_s) and
         # raises the abort the job honors, so no frame may stall anywhere
-        # near the mapping delay (round-2 verdict ask #2: bounded
-        # keyframe-insertion latency).
+        # near the mapping delay (bounded keyframe-insertion latency).
         assert float(np.median(times)) < delay / 2, times
         n_stalled = sum(1 for t in times if t > delay)
         assert n_stalled == 0, f"{n_stalled} frames stalled on mapping: {times}"

@@ -38,7 +38,7 @@ def make_voc_text(tmp_path, n_nodes=500, k=5, seed=0):
 class TestOrbvocScale:
     @pytest.mark.slow
     def test_orbvoc_scale_parse_and_sparse_db(self, tmp_path):
-        """ORBvoc-class vocabulary end-to-end (VERDICT.md #8): generate a
+        """ORBvoc-class vocabulary end-to-end: generate a
         complete k=8/L=6 tree (262144 words — past the dense-database
         threshold), parse it through the native streaming parser, and run
         the sparse (inverted-file-as-gather) KeyframeDatabase path on it."""

@@ -1,5 +1,4 @@
-"""ORBvoc-scale vocabulary driving an ACTUAL in-pipeline loop closure
-(round-4 verdict ask #6).
+"""ORBvoc-scale vocabulary driving an ACTUAL in-pipeline loop closure.
 
 test_orbvoc_scale.py proves the 10^6-word asset path standalone (parse,
 descent, sparse scoring); every loop e2e so far used small trained

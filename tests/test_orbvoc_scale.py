@@ -1,4 +1,4 @@
-"""Full-ORBvoc-scale vocabulary fixture (round-3 verdict #5b).
+"""Full-ORBvoc-scale vocabulary fixture.
 
 The reference ships a 44 MB ``ORBvoc.txt`` (k=10, L=6, ~1.11M nodes /
 1M leaf words; DBoW2 TemplatedVocabulary::loadFromTextFile,

@@ -317,7 +317,7 @@ class TestDistributedLocalBA:
 
 
 class TestShardedLiveMap:
-    """Round-2 verdict #6: shard the LIVE MapState (keyframe blocks), not
+    """Shard the LIVE MapState (keyframe blocks), not
     only the solvers' internals — mapping programs must produce the same
     map when their inputs are placed on an 8-device mesh under GSPMD."""
 

@@ -1,5 +1,5 @@
 """KITTI-class capacity: the per-frame map ops must hold at 2048 keyframes
-/ 131072 points (VERDICT.md #4 — KITTI 00 needs ~1.3k live KFs, >100k pts).
+/ 131072 points (KITTI 00 needs ~1.3k live KFs, >100k pts).
 
 These tests exercise the SEGMENT-OP formulations (no (P, K) observation
 matrix on any per-frame path) at full capacity, check them against the

@@ -215,8 +215,8 @@ class TestLoopClosing:
         accumulates enough that the revisit cannot seamlessly reconnect
         through covisibility, the BoW candidates fire, and the
         mbFixScale=false Sim3 path (src/LoopClosing.cc:≈160) must verify a
-        loop edge spanning the circle.  Round-2 verdict ask #4: the only
-        loop e2e before this was RGB-D with BA disabled."""
+        loop edge spanning the circle.  The RGB-D loop e2e above runs with
+        BA disabled."""
         import numpy as np
 
         from orbslam2_tpu.ops.bow import train_vocabulary
@@ -239,8 +239,8 @@ class TestLoopClosing:
         # — still faster than typical TUM handheld motion.  The previous
         # 140-frame fixture moved 3.2 deg/frame (~96 deg/s), which left no
         # tracking margin anywhere: the run sat at the 30-inlier loss
-        # cliff and tipped over under cross-backend float drift (the
-        # round-4 judge reran it red on CPU while it passed on TPU).
+        # cliff and tipped over under cross-backend float drift (red on
+        # one backend, green on another).
         # Seed choice: SLAM is chaotic (float-order changes reshuffle the
         # trajectory; the reference's own validation reports medians over
         # ~5 runs for the same reason, SURVEY.md §4).  A 4-seed scan at

@@ -1,4 +1,7 @@
-"""Profile local BA internals on the TPU (sync cost ~30ms subtracts out)."""
+"""Profile local BA internals on the device (per-call wall times).
+
+Run on the GPU: python tools/ba_profile.py
+"""
 import time, jax, jax.numpy as jnp, numpy as np
 from orbslam2_tpu.models import map_state as ms
 from orbslam2_tpu.solvers.local_ba import local_bundle_adjustment, schur_ba_core, _gather_problem

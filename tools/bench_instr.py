@@ -1,7 +1,8 @@
 """Instrumented bench: per-chunk wall time + mapping job timing."""
 import time, numpy as np, jax
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import bench as B
 
 make_system, imgs, deps, seq = B.build()

@@ -1,7 +1,8 @@
 """Per-stage device time of the mapping job on the real bench state."""
 import time, numpy as np, jax, jax.numpy as jnp
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import bench as B
 
 make_system, imgs, deps, seq = B.build()
